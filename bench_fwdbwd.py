@@ -1,12 +1,10 @@
-"""Forward+backward cost decomposition (round 4, verdict item 3).
+"""Forward+backward cost decomposition.
 
-BENCH_r03 measured fwd+bwd at 16.1 M rays/s vs 39.8 M forward-only of the
-same differentiable pipeline (and 105 M for the fused forward renderer) —
-a 2.5x fwd->fwd+bwd multiplier with no recorded breakdown. Each variant
-here times value_and_grad of the L2 image loss on the GI Cornell
-differentiable pipeline (diff.py) with one knob turned, on the REAL chip:
+Each variant times value_and_grad of the L2 image loss on the GI Cornell
+differentiable pipeline (diff.py, 780x585) with one knob turned, on the
+local accelerator:
 
-  fwd         — forward radiance only (no grad), the 39.8 M baseline
+  fwd         — forward radiance only (no grad)
   base        — value_and_grad w.r.t. mat_albedo (the bench metric)
   vjp_fwd     — jax.vjp forward half only (residual-saving cost: the gap
                 between this and `fwd` is what materializing the tape
@@ -16,16 +14,12 @@ differentiable pipeline (diff.py) with one knob turned, on the REAL chip:
   remat       — jax.checkpoint around the whole radiance fn (recompute
                 instead of materialize; tells if the tape is HBM-bound)
   allparams   — grads w.r.t. mat_albedo AND al_le
-  analytic    — the round-4 analytic-gradient megakernel
-                (diff.try_make_fast_value_and_grad: per-lane Jacobians
-                accumulated in the forward pass, no transpose)
 
 Usage: python bench_fwdbwd.py [variant ...]
 Prints one JSON line per variant: {"variant", "rays_per_s"}.
 """
 
 import json
-import os
 import sys
 import time
 
@@ -34,11 +28,11 @@ def build(variant):
     import jax
     import jax.numpy as jnp
 
-    from xraytracer_tpu.camera import PinholeCamera
-    from xraytracer_tpu.diff import make_loss_fn, make_radiance_fn
-    from xraytracer_tpu.renderer import pixel_grid
-    from xraytracer_tpu.scene.builder import scene_statics
-    from xraytracer_tpu.scene.presets import build_cornell_box, cornell_camera
+    from xraytracer.camera import PinholeCamera
+    from xraytracer.diff import make_loss_fn, make_radiance_fn
+    from xraytracer.renderer import pixel_grid
+    from xraytracer.scene.builder import scene_statics
+    from xraytracer.scene.presets import build_cornell_box, cornell_camera
 
     w, h = 780, 585
     tables = build_cornell_box().build()
@@ -59,21 +53,6 @@ def build(variant):
         params["al_le"] = tables.al_le
     loss = make_loss_fn(radiance)
 
-    if variant == "analytic":
-        from xraytracer_tpu.diff import try_make_fast_value_and_grad
-
-        step = try_make_fast_value_and_grad(
-            tables, statics, camera, w, h, max_depth=3, nee=True,
-            cosine_sampling=True,
-        )
-        assert step is not None
-        fn = jax.jit(step)
-
-        def run(s):
-            v, g = fn(params, pixel_ids, pixel_xy, target, s)
-            return g["mat_albedo"]
-
-        return run, w * h
     if variant == "fwd":
         fn = jax.jit(
             lambda p, s: jnp.sum(radiance(p, pixel_ids, pixel_xy, s))
@@ -105,14 +84,9 @@ def build(variant):
 def main(argv):
     import jax
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), ".jax_cache"
-    )
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from xraytracer.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     variants = argv or ["fwd", "base", "vjp_fwd", "nonee", "depth1",
                         "remat", "allparams"]

@@ -1,10 +1,10 @@
-"""Many-light scaling: per-sample cost vs light count on the fused path.
+"""Many-light scaling: per-sample cost vs light count.
 
 The reference picks lights uniformly from a list it never grows past 2
 (Src/scene.cpp:182-188; largest shipped scene has 1 quad light). This
 harness renders a room whose ceiling carries an n x n grid of quad lights
 of skewed powers and measures GI rays/s with ``nee_mode="power"`` (single
-power-CDF-picked light per vertex -> ONE fused shadow sweep per bounce
+power-CDF-picked light per vertex -> ONE shadow sweep per bounce
 regardless of light count) against the 1-light baseline — demonstrating
 per-sample cost O(1) in light count where the reference's all-lights NEE
 is O(n_lights).
@@ -15,15 +15,13 @@ Prints one JSON line per light count.
 
 import argparse
 import json
-import os
-import time
 
 
 def build_room(n_side):
     import numpy as np
 
-    from xraytracer_tpu.math import from_rows
-    from xraytracer_tpu.scene.builder import SceneBuilder
+    from xraytracer.math import from_rows
+    from xraytracer.scene.builder import SceneBuilder
 
     b = SceneBuilder()
     white = b.add_lambert((0.7, 0.7, 0.7))
@@ -36,9 +34,7 @@ def build_room(n_side):
         ((556, 0, 0), (556, 0, 559), (556, 548, 559), (556, 548, 0)),
     ):
         # wound so geometric normals face the room interior (NEE's cos
-        # clamps against ng; round-5 fix — the round-4 run had outward
-        # normals AND a camera facing away, so it measured a degenerate
-        # near-black render)
+        # clamps against ng)
         quads.append(np.asarray([[v0, v2, v1], [v0, v3, v2]], np.float32))
     b.add_mesh(np.concatenate(quads, axis=0), material=white)
     rng = np.random.default_rng(11)
@@ -65,10 +61,10 @@ def build_room(n_side):
 
 
 def bench_one(n_side, spp, w=512, h=384):
-    from xraytracer_tpu.camera import PinholeCamera
-    from xraytracer_tpu.integrators import make_path_integrator
-    from xraytracer_tpu.renderer import WavefrontRenderer
-    from xraytracer_tpu.scene.builder import scene_statics
+    from xraytracer.camera import PinholeCamera
+    from xraytracer.integrators import make_path_integrator
+    from xraytracer.renderer import WavefrontRenderer
+    from xraytracer.scene.builder import scene_statics
 
     b, camk = build_room(n_side)
     tables = b.build()
@@ -81,8 +77,7 @@ def bench_one(n_side, spp, w=512, h=384):
     renderer = WavefrontRenderer(tables, camera, integrate, w, h, seed=0)
     renderer.render(2)
     best = max(renderer.render(spp).samples_per_sec for _ in range(3))
-    return dict(n_lights=n_side * n_side, rays_per_s=best,
-                fused=renderer.run_chunk is not None)
+    return dict(n_lights=n_side * n_side, rays_per_s=best)
 
 
 def main():
@@ -91,16 +86,9 @@ def main():
     ap.add_argument("--sides", default="1,4,8")
     args = ap.parse_args()
 
-    import jax
+    from xraytracer.compile_cache import enable_compile_cache
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), ".jax_cache"
-    )
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    enable_compile_cache()
 
     for s in args.sides.split(","):
         r = bench_one(int(s), args.spp)

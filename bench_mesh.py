@@ -6,8 +6,7 @@ reference: Src/scene.h:22-24) and sweeps every triangle per ray
 faces). This harness measures GI rays/s on procedural lat-long sphere
 meshes of increasing size (the SphereMesh::Triangulate analogue,
 Src/primitive.cpp:170-205) so the brute-force cliff is a recorded number
-rather than a guess (round-1 VERDICT item 8), and quantifies what the
-chunk-culling sweep buys back.
+rather than a guess.
 
 Usage: python bench_mesh.py [--sizes 2k,13k,51k] [--spp 8]
 Prints one JSON line per size.
@@ -15,7 +14,6 @@ Prints one JSON line per size.
 
 import argparse
 import json
-import os
 import time
 
 SIZES = {
@@ -23,16 +21,15 @@ SIZES = {
     "13k": (82, 80),     # ~13k
     "51k": (161, 160),   # ~51k — well past anything the reference ships
     "205k": (321, 320),  # ~205k — 100x the reference's largest mesh
-    "1m": (709, 708),    # ~1M — streamed-sweep headroom point (round 4):
-                         # HBM-bound group streaming has no VMEM size cap
+    "1m": (709, 708),    # ~1M
 }
 
 
 def build_scene(n_theta, n_phi):
     import numpy as np
 
-    from xraytracer_tpu.math import from_rows
-    from xraytracer_tpu.scene.builder import SceneBuilder
+    from xraytracer.math import from_rows
+    from xraytracer.scene.builder import SceneBuilder
 
     b = SceneBuilder()
     white = b.add_lambert((0.8, 0.8, 0.8))
@@ -59,13 +56,13 @@ def build_scene(n_theta, n_phi):
     return b, dict(c2w=c2w, fov_deg=45.0)
 
 
-def bench_one(n_theta, n_phi, spp, w=256, h=192, fused="auto"):
+def bench_one(n_theta, n_phi, spp, w=256, h=192):
     import numpy as np
 
-    from xraytracer_tpu.camera import PinholeCamera
-    from xraytracer_tpu.integrators import make_path_integrator
-    from xraytracer_tpu.renderer import WavefrontRenderer
-    from xraytracer_tpu.scene.builder import scene_statics
+    from xraytracer.camera import PinholeCamera
+    from xraytracer.integrators import make_path_integrator
+    from xraytracer.renderer import WavefrontRenderer
+    from xraytracer.scene.builder import scene_statics
 
     b, camk = build_scene(n_theta, n_phi)
     tables = b.build()
@@ -74,15 +71,13 @@ def bench_one(n_theta, n_phi, spp, w=256, h=192, fused="auto"):
     camera = PinholeCamera.make(w / h, **camk)
     integrate = make_path_integrator(
         tables, statics, max_depth=3, nee=True, cosine_sampling=True,
-        fused=fused,
     )
     renderer = WavefrontRenderer(tables, camera, integrate, w, h, seed=0)
     t0 = time.perf_counter()
     renderer.render(1)
     compile_s = time.perf_counter() - t0
     best = max(renderer.render(spp).samples_per_sec for _ in range(3))
-    return dict(n_tris=n_tris, rays_per_s=best, compile_s=compile_s,
-                fused=fused)
+    return dict(n_tris=n_tris, rays_per_s=best, compile_s=compile_s)
 
 
 def main():
@@ -91,22 +86,14 @@ def main():
     ap.add_argument("--spp", type=int, default=8)
     args = ap.parse_args()
 
-    import jax
+    from xraytracer.compile_cache import enable_compile_cache
 
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), ".jax_cache"
-    )
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    enable_compile_cache()
 
     for key in args.sizes.split(","):
         n_theta, n_phi = SIZES[key.strip()]
-        for fused in ("auto", "off"):
-            r = bench_one(n_theta, n_phi, args.spp, fused=fused)
-            print(json.dumps({"size": key, **r}), flush=True)
+        r = bench_one(n_theta, n_phi, args.spp)
+        print(json.dumps({"size": key, **r}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,50 +1,41 @@
-"""Device-count scaling harness (BASELINE.md: rays/s at 1 chip / 1 host /
-N hosts, >=90% linear 1->2).
+"""Device-count scaling harness: GI Cornell rays/s of the pixel-sharded
+renderer (NamedSharding over the pixel axis, no collectives) on 1..N local
+devices, with the scaling efficiency against one device.
 
-On this machine there is ONE real TPU chip, so true multi-chip scaling
-can't be measured; this harness instead validates the scaling SHAPE of the
-sharded renderer on an N-device virtual CPU mesh (the same mesh mechanics
-a pod uses — pixel-axis NamedSharding, no collectives) and prints a table.
-Run on a real pod, the same code measures real scaling — and on TPU the
-sharded renderer engages the fused megakernel per device slice
-(megakernel.make_spp_render(mesh=...)), so the scaling numbers measure the
-flagship fused path, not the wavefront fallback.
+It measures the devices JAX finds and refuses to run when there are fewer
+than requested; it never substitutes virtual CPU devices.
 
-Usage: python bench_scaling.py [--devices 1 2 4 8] [--spp 4]
+Usage: python bench_scaling.py [--devices 1 2 4] [--spp 4]
 """
 
 import argparse
 import json
-import time
 
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--devices", type=int, nargs="+", default=[1, 2, 4, 8])
+    p.add_argument("--devices", type=int, nargs="+", default=[1, 2, 4])
     p.add_argument("--spp", type=int, default=4)
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=384)
-    p.add_argument("--cpu", action="store_true", default=None,
-                   help="force the virtual CPU mesh (default when fewer "
-                        "real devices than requested)")
     args = p.parse_args()
 
     import jax
 
     n_want = max(args.devices)
-    try:
-        if args.cpu or len(jax.local_devices()) < n_want:
-            raise RuntimeError
-    except Exception:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", n_want)
+    devs = jax.local_devices()
+    if len(devs) < n_want:
+        raise SystemExit(
+            f"bench_scaling: {n_want} devices requested, JAX found "
+            f"{len(devs)} ({devs[0].platform})"
+        )
 
-    from xraytracer_tpu.camera import PinholeCamera
-    from xraytracer_tpu.integrators import make_path_integrator
-    from xraytracer_tpu.parallel import make_mesh
-    from xraytracer_tpu.renderer import WavefrontRenderer, pixel_sharding
-    from xraytracer_tpu.scene.builder import scene_statics
-    from xraytracer_tpu.scene.presets import build_cornell_box, cornell_camera
+    from xraytracer.camera import PinholeCamera
+    from xraytracer.integrators import make_path_integrator
+    from xraytracer.parallel import make_mesh
+    from xraytracer.renderer import WavefrontRenderer, pixel_sharding
+    from xraytracer.scene.builder import scene_statics
+    from xraytracer.scene.presets import build_cornell_box, cornell_camera
 
     w, h = args.width, args.height
     tables = build_cornell_box().build()
@@ -56,6 +47,9 @@ def main():
 
     rows = []
     base = None
+    print(json.dumps({"platform": devs[0].platform,
+                      "device_kind": devs[0].device_kind,
+                      "device_count": len(devs)}))
     for nd in args.devices:
         mesh = make_mesh(nd)
         r = WavefrontRenderer(

@@ -1,13 +1,13 @@
-// xrt_native: native IO tier for xraytracer_tpu.
+// xrt_native: native IO tier for xraytracer.
 //
 // The reference renderer's data loading and image output are native C++
 // (tinyObjLoader in Src/scene.cpp:46-155, OpenCV imwrite in
-// Src/image.h:116-143). This library is the TPU-framework equivalent:
+// Src/image.h:116-143). This library is this framework's equivalent:
 // a fast OBJ/MTL parser producing flat per-shape triangle arrays (the
 // layout SceneBuilder consumes) and PNG/PPM writers. Exposed as a plain C
 // ABI consumed from Python via ctypes (no pybind11 in the image).
 //
-// Semantics mirror xraytracer_tpu/scene/objloader.py exactly: fan
+// Semantics mirror xraytracer/scene/objloader.py exactly: fan
 // triangulation, 1-based and negative OBJ indices, per-shape first usemtl
 // wins, shapes split on o/g, faceless shapes dropped, utf-8 BOM tolerated.
 

@@ -6,7 +6,7 @@ import os
 
 import numpy as np
 
-from xraytracer_tpu.cli import main
+from xraytracer.cli import main
 
 
 def _decode_png(path):

@@ -4,15 +4,15 @@ single-estimator statistical tests cannot)."""
 
 import numpy as np
 
-from xraytracer_tpu.camera import PinholeCamera
-from xraytracer_tpu.integrators import (
+from xraytracer.camera import PinholeCamera
+from xraytracer.integrators import (
     make_path_integrator,
     make_volume_integrator,
 )
-from xraytracer_tpu.math import from_rows
-from xraytracer_tpu.renderer import render
-from xraytracer_tpu.scene.builder import SceneBuilder, scene_statics
-from xraytracer_tpu.scene.presets import build_cornell_box, cornell_camera
+from xraytracer.math import from_rows
+from xraytracer.renderer import render
+from xraytracer.scene.builder import SceneBuilder, scene_statics
+from xraytracer.scene.presets import build_cornell_box, cornell_camera
 
 
 def test_gi_equals_indirect_in_expectation():

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from xraytracer_tpu.camera import PinholeCamera
-from xraytracer_tpu.integrators import make_volume_integrator
-from xraytracer_tpu.renderer import CAMERA_SITE, pixel_grid
-from xraytracer_tpu.sampling import path_keys, uniform2
-from xraytracer_tpu.scene.builder import SceneBuilder, scene_statics
-from xraytracer_tpu.math import from_rows
+from xraytracer.camera import PinholeCamera
+from xraytracer.integrators import make_volume_integrator
+from xraytracer.renderer import CAMERA_SITE, pixel_grid
+from xraytracer.sampling import path_keys, uniform2
+from xraytracer.scene.builder import SceneBuilder, scene_statics
+from xraytracer.math import from_rows
 
 W, H = 8, 6
 
@@ -105,7 +105,7 @@ def test_density_descent_recovers_blob():
     """
     import optax
 
-    from xraytracer_tpu.renderer import pixel_grid
+    from xraytracer.renderer import pixel_grid
 
     W2, H2 = 16, 12
     b = SceneBuilder()

@@ -7,22 +7,22 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from xraytracer_tpu.camera import PinholeCamera
-from xraytracer_tpu.integrators import (
+from xraytracer.camera import PinholeCamera
+from xraytracer.integrators import (
     make_direct_integrator,
     make_normal_integrator,
     make_path_integrator,
     make_whitted_integrator,
 )
-from xraytracer_tpu.math import from_rows
-from xraytracer_tpu.renderer import (
+from xraytracer.math import from_rows
+from xraytracer.renderer import (
     Accumulator,
     default_mesh,
     pixel_sharding,
     render,
 )
-from xraytracer_tpu.scene.builder import SceneBuilder, scene_statics
-from xraytracer_tpu.scene.presets import build_cornell_box, cornell_camera
+from xraytracer.scene.builder import SceneBuilder, scene_statics
+from xraytracer.scene.presets import build_cornell_box, cornell_camera
 
 W, H = 40, 30
 
@@ -306,11 +306,11 @@ def test_pixel_order_morton_image_identical():
     """Z-order lane traversal (renderer.pixel_grid(order="morton")) must
     produce the bitwise-identical image to raster order: per-pixel RNG
     streams are functions of the PIXEL ID, and assembly un-permutes."""
-    from xraytracer_tpu.camera import PinholeCamera
-    from xraytracer_tpu.integrators import make_path_integrator
-    from xraytracer_tpu.renderer import WavefrontRenderer
-    from xraytracer_tpu.scene.builder import scene_statics
-    from xraytracer_tpu.scene.presets import build_cornell_box, cornell_camera
+    from xraytracer.camera import PinholeCamera
+    from xraytracer.integrators import make_path_integrator
+    from xraytracer.renderer import WavefrontRenderer
+    from xraytracer.scene.builder import scene_statics
+    from xraytracer.scene.presets import build_cornell_box, cornell_camera
 
     tables = build_cornell_box().build()
     statics = scene_statics(tables)
@@ -333,10 +333,10 @@ def test_checkpoint_resume_across_pixel_orders(tmp_path):
     checkpoints)."""
     import os
 
-    from xraytracer_tpu.camera import PinholeCamera
-    from xraytracer_tpu.renderer import Accumulator, WavefrontRenderer
-    from xraytracer_tpu.scene.builder import scene_statics
-    from xraytracer_tpu.scene.presets import build_cornell_box, cornell_camera
+    from xraytracer.camera import PinholeCamera
+    from xraytracer.renderer import Accumulator, WavefrontRenderer
+    from xraytracer.scene.builder import scene_statics
+    from xraytracer.scene.presets import build_cornell_box, cornell_camera
 
     tables = build_cornell_box().build()
     statics = scene_statics(tables)
@@ -344,8 +344,7 @@ def test_checkpoint_resume_across_pixel_orders(tmp_path):
     camera = PinholeCamera.make(w / h, **cornell_camera())
 
     def renderer(order):
-        integ = make_path_integrator(tables, statics, 2, nee=True,
-                                     fused="never")
+        integ = make_path_integrator(tables, statics, 2, nee=True)
         return WavefrontRenderer(tables, camera, integ, w, h, seed=5,
                                  pixel_order=order)
 
@@ -373,14 +372,14 @@ def test_sorted_wavefront_bitwise_identical():
         for sort in (False, True):
             integ = make_path_integrator(
                 tables, statics, max_depth=depth, nee=nee,
-                cosine_sampling=True, fused="never", sort_rays=sort,
+                cosine_sampling=True, sort_rays=sort,
             )
             imgs.append(render(tables, cam, integ, W, H, 2, seed=3).image)
         np.testing.assert_array_equal(imgs[0], imgs[1])
 
 
 def _sphere_mesh_scene():
-    from xraytracer_tpu.math import from_rows
+    from xraytracer.math import from_rows
 
     b = SceneBuilder()
     white = b.add_lambert((0.8, 0.8, 0.8))
@@ -406,7 +405,7 @@ def test_sorted_wavefront_stats_match():
     for sort in (False, True):
         integ = make_path_integrator(
             tables, statics, max_depth=3, nee=True, with_stats=True,
-            fused="never", sort_rays=sort,
+            sort_rays=sort,
         )
         r = render(tables, cam, integ, W, H, 2, seed=3)
         outs.append(r.stats)

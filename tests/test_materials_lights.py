@@ -5,18 +5,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xraytracer_tpu.camera import PinholeCamera
-from xraytracer_tpu.integrators import make_furnace_integrator
-from xraytracer_tpu.lights import (
+from xraytracer.camera import PinholeCamera
+from xraytracer.integrators import make_furnace_integrator
+from xraytracer.lights import (
     area_light_le,
     sample_area_light,
     sample_delta_light,
 )
-from xraytracer_tpu.materials import eval_bsdf, sample_bsdf
-from xraytracer_tpu.math import dot, from_rows, normalize
-from xraytracer_tpu.renderer import render
-from xraytracer_tpu.sampling import path_keys, uniform2, uniform1
-from xraytracer_tpu.scene.builder import SceneBuilder
+from xraytracer.materials import eval_bsdf, sample_bsdf
+from xraytracer.math import dot, from_rows, normalize
+from xraytracer.renderer import render
+from xraytracer.sampling import path_keys, uniform2, uniform1
+from xraytracer.scene.builder import SceneBuilder
 
 
 def _lambert_scene(albedo=(0.7, 0.5, 0.3)):
@@ -227,8 +227,8 @@ def test_culling_toggle():
     """CULLING define equivalent: backfaces miss when enabled
     (Src/cmakelists.txt:60, Src/primitive.cpp:147-153)."""
     import jax as _jax
-    from xraytracer_tpu.geometry import Rays as _Rays
-    from xraytracer_tpu.geometry import intersect as _xi
+    from xraytracer.geometry import Rays as _Rays
+    from xraytracer.geometry import intersect as _xi
 
     b = SceneBuilder()
     # front face (ng = +z) seen from +z, and the same triangle flipped
@@ -258,7 +258,7 @@ def test_culling_toggle():
 def test_light_power_weights():
     """Host-side power weights: mean(Le) * area * pi with the per-type
     area forms (tri |Ng|/2, quad |Ng|, sphere 4 pi r^2); padding rows 0."""
-    from xraytracer_tpu.lights import light_power_weights
+    from xraytracer.lights import light_power_weights
 
     b = SceneBuilder()
     b.add_triangle_light((0, 0, 0), (2, 0, 0), (0, 2, 0), (1, 1, 1))
@@ -294,8 +294,8 @@ def test_power_nee_unbiased_and_lower_variance():
     general DiscreteDistribution1D) keeps the expectation of "all" and has
     LOWER seed-to-seed variance than uniform "one" when light powers are
     skewed (here 9:1)."""
-    from xraytracer_tpu.integrators import make_path_integrator
-    from xraytracer_tpu.scene.builder import scene_statics
+    from xraytracer.integrators import make_path_integrator
+    from xraytracer.scene.builder import scene_statics
 
     tables, camk = _two_light_scene()
     statics = scene_statics(tables)
@@ -305,7 +305,7 @@ def test_power_nee_unbiased_and_lower_variance():
     def render_mode(mode, seed, spp):
         integ = make_path_integrator(
             tables, statics, max_depth=1, nee=True, cosine_sampling=True,
-            nee_mode=mode, fused="never",
+            nee_mode=mode,
         )
         return np.asarray(render(tables, cam, integ, W, H, spp,
                                  seed=seed).image)

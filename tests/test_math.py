@@ -2,8 +2,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xraytracer_tpu import math as xm
-from xraytracer_tpu.constants import PI
+from xraytracer import math as xm
+from xraytracer.constants import PI
 
 
 def rng(seed=0):

@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xraytracer_tpu.geometry import Rays
-from xraytracer_tpu.media import (
+from xraytracer.geometry import Rays
+from xraytracer.media import (
     density_lookup,
     eval_phase,
     sample_medium,
     segment_transmittance,
 )
-from xraytracer_tpu.sampling import path_keys, hg_phase
-from xraytracer_tpu.scene.builder import SceneBuilder
+from xraytracer.sampling import path_keys, hg_phase
+from xraytracer.scene.builder import SceneBuilder
 
 N = 4096
 
@@ -175,7 +175,7 @@ def test_phase_eval_matches_hg():
 def test_delta_tracking_transmittance_matches_ratio():
     """Both transmittance estimators agree in expectation with the closed
     form on a constant grid (Src/medium.h:321-386)."""
-    from xraytracer_tpu.media import delta_tracking_transmittance
+    from xraytracer.media import delta_tracking_transmittance
 
     tables = _hetero_tables(0.5, 0.4, 0.2)
     p1 = jnp.tile(jnp.asarray([[0.0, 0.0, 0.9]]), (N, 1))
@@ -193,11 +193,11 @@ def test_large_max_steps_factory_does_not_crash():
     max_steps > 2044; the factory must still build (round-1 VERDICT item 2:
     the fixed NEE site offset used to assert out). Also checks the derived
     bound and that an impossible bound raises a sized ValueError."""
-    from xraytracer_tpu.integrators import make_volume_integrator
-    from xraytracer_tpu.integrators.volume import _nee_site_layout
-    from xraytracer_tpu.media import default_max_steps
-    from xraytracer_tpu.scene.builder import scene_statics
-    from xraytracer_tpu.scene.presets import build_volume_scene
+    from xraytracer.integrators import make_volume_integrator
+    from xraytracer.integrators.volume import _nee_site_layout
+    from xraytracer.media import default_max_steps
+    from xraytracer.scene.builder import scene_statics
+    from xraytracer.scene.presets import build_volume_scene
 
     tables = build_volume_scene(res=(8, 8, 8), scattering=(3.0, 3.0, 3.0)).build()
     steps = default_max_steps(tables)
@@ -218,7 +218,7 @@ def test_supergrid_sparse_transmittance():
     configuration the supergrid path accelerates (empty blocks cost no
     collision candidates). Also checks the segment decomposition covers the
     whole ray (no truncation bias from the fixed DDA unroll)."""
-    from xraytracer_tpu.scene.builder import SceneBuilder
+    from xraytracer.scene.builder import SceneBuilder
 
     rng = np.random.default_rng(5)
     res = 24

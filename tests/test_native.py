@@ -7,8 +7,8 @@ import zlib
 import numpy as np
 import pytest
 
-from xraytracer_tpu import native
-from xraytracer_tpu.scene import objloader
+from xraytracer import native
+from xraytracer.scene import objloader
 
 OBJ = """\
 mtllib test.mtl
@@ -129,7 +129,7 @@ def test_cornell_obj_via_builder(tmp_path):
     (tmp_path / "test.mtl").write_text(MTL)
     p = tmp_path / "scene.obj"
     p.write_text(OBJ)
-    from xraytracer_tpu.scene.builder import SceneBuilder
+    from xraytracer.scene.builder import SceneBuilder
 
     b = SceneBuilder()
     objloader.load_obj_into(b, str(p))
@@ -148,7 +148,7 @@ def test_emissive_from_ke(tmp_path):
         "v 0 2 0\nv 1 2 0\nv 0 2 1\nf 1 2 3\n"
         "o wall\nusemtl wall\nv 0 0 0\nv 1 0 0\nv 0 0 1\nf 4 5 6\n"
     )
-    from xraytracer_tpu.scene.builder import SceneBuilder
+    from xraytracer.scene.builder import SceneBuilder
 
     b = SceneBuilder()
     objloader.load_obj_into(b, str(tmp_path / "s.obj"), emissive_from_ke=True)

@@ -5,19 +5,19 @@ re-implementation of the render pipeline (RNG, camera, intersection, light
 sampling, shading) reproduces the framework's images allclose at the same
 (seed, pixel, sample, site) random draws. This catches systematic errors
 that a same-code regression test cannot — everything here is written
-directly from the math, sharing no code with xraytracer_tpu except the
+directly from the math, sharing no code with xraytracer except the
 constants.
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from xraytracer_tpu.camera import PinholeCamera
-from xraytracer_tpu.constants import K_EPS, SHADOW_BIAS
-from xraytracer_tpu.integrators import make_direct_integrator, make_normal_integrator
-from xraytracer_tpu.renderer import CAMERA_SITE, render
-from xraytracer_tpu.scene.builder import SceneBuilder, scene_statics
-from xraytracer_tpu.scene.presets import build_cornell_box, cornell_camera
+from xraytracer.camera import PinholeCamera
+from xraytracer.constants import K_EPS, SHADOW_BIAS
+from xraytracer.integrators import make_direct_integrator, make_normal_integrator
+from xraytracer.renderer import CAMERA_SITE, render
+from xraytracer.scene.builder import SceneBuilder, scene_statics
+from xraytracer.scene.presets import build_cornell_box, cornell_camera
 
 W, H = 16, 12
 SPP = 2
@@ -292,7 +292,7 @@ def test_gi_depth2_matches_oracle():
     """Depth-2 GI (NEE + RR + cosine bounce) against the independent scalar
     oracle at matched seeds — promotes the GI golden from a regression gate
     to a correctness gate (round-1 VERDICT item 7)."""
-    from xraytracer_tpu.integrators import make_path_integrator
+    from xraytracer.integrators import make_path_integrator
 
     tables = build_cornell_box().build()
     statics = scene_statics(tables)
@@ -317,7 +317,7 @@ def test_indirect_depth3_matches_oracle():
     """IndirectIntegrator (BSDF-only, Le at every depth) against the scalar
     oracle at depth 3 — the last surface integrator whose only prior gate
     was depth-shifted consistency against GI."""
-    from xraytracer_tpu.integrators import make_path_integrator
+    from xraytracer.integrators import make_path_integrator
 
     tables = build_cornell_box().build()
     statics = scene_statics(tables)
@@ -368,7 +368,7 @@ class VPTOracle(Oracle):
         return np.inf, np.inf, False
 
     def vpt(self, px, py, sample, max_depth=3):
-        from xraytracer_tpu.constants import RAY_EPS
+        from xraytracer.constants import RAY_EPS
 
         key = path_key(self.seed, py * self.width + px, sample)
         o, d = self.camera_ray(px, py, key)
@@ -425,9 +425,9 @@ class VPTOracle(Oracle):
 def test_vpt_matches_oracle():
     """Homogeneous achromatic VolumePathTracing against the scalar oracle at
     matched seeds (round-1 VERDICT item 7's volume half)."""
-    from xraytracer_tpu.integrators import make_volume_integrator
-    from xraytracer_tpu.math import from_rows
-    from xraytracer_tpu.scene.presets import build_vpt_scene
+    from xraytracer.integrators import make_volume_integrator
+    from xraytracer.math import from_rows
+    from xraytracer.scene.presets import build_vpt_scene
 
     tables = build_vpt_scene(variant="achromatic").build()
     statics = scene_statics(tables)
@@ -568,7 +568,7 @@ def _whitted_scene():
     b.add_point_light((0.0, 3.5, 1.0), color=(1.0, 0.9, 0.8), intensity=40.0)
     b.add_distant_light((0.2, -1.0, -0.4), color=(0.9, 1.0, 1.0),
                         intensity=0.6)
-    from xraytracer_tpu.math import from_rows
+    from xraytracer.math import from_rows
 
     c2w = from_rows(1.0, 0, 0, 0, 0, 1.0, 0, 0, 0, 0, 1.0, 0, 0, 1.2, 3.0, 1)
     return b.build(), dict(c2w=c2w, fov_deg=55.0)
@@ -578,7 +578,7 @@ def test_whitted_matches_oracle():
     """Whitted (mirror + glass + delta-light NEE + sky) against the
     independent scalar oracle at matched seeds — extends the oracle gate to
     the last un-oracled surface integrator (round-1 VERDICT weak item 6)."""
-    from xraytracer_tpu.integrators import make_whitted_integrator
+    from xraytracer.integrators import make_whitted_integrator
 
     tables, camk = _whitted_scene()
     statics = scene_statics(tables)

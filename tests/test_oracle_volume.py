@@ -18,12 +18,12 @@ oracle takes the same branches at the framework's discrete decisions
 
 import numpy as np
 
-from xraytracer_tpu.camera import PinholeCamera
-from xraytracer_tpu.constants import RAY_EPS
-from xraytracer_tpu.integrators import make_volume_integrator
-from xraytracer_tpu.math import from_rows
-from xraytracer_tpu.renderer import render
-from xraytracer_tpu.scene.builder import SceneBuilder, scene_statics
+from xraytracer.camera import PinholeCamera
+from xraytracer.constants import RAY_EPS
+from xraytracer.integrators import make_volume_integrator
+from xraytracer.math import from_rows
+from xraytracer.renderer import render
+from xraytracer.scene.builder import SceneBuilder, scene_statics
 
 from test_oracle import SITES_PER_BOUNCE, Oracle, path_key, u1, u2
 
@@ -334,7 +334,7 @@ def test_het_vpt_matches_oracle():
     max_depth, max_steps = 3, 64
     integ = make_volume_integrator(
         tables, statics, max_depth=max_depth, nee=False,
-        max_steps=max_steps, fused="never",
+        max_steps=max_steps,
     )
     r = render(tables, cam, integ, W, H, SPP, seed=0)
     oracle = HetVolumeOracle(tables, camk, W, H, seed=0)
@@ -360,8 +360,7 @@ class HetVolumeNEEOracle(HetVolumeOracle):
     """
 
     def _transmittance(self, p1, p2, key, site, max_steps):
-        """media_pallas.track_transmittance / media.segment_transmittance
-        het branch, scalar float32."""
+        """media.segment_transmittance het branch, scalar float32."""
         dv = p2 - p1
         dist = F(np.linalg.norm(dv))
         if dist == 0:
@@ -492,7 +491,7 @@ def test_het_vpt_nee_matches_oracle():
     max_depth, max_steps = 3, 64
     integ = make_volume_integrator(
         tables, statics, max_depth=max_depth, nee=True,
-        max_steps=max_steps, fused="never",
+        max_steps=max_steps,
     )
     r = render(tables, cam, integ, W, H, SPP, seed=0)
     oracle = HetVolumeNEEOracle(tables, camk, W, H, seed=0)

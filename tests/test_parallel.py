@@ -5,16 +5,16 @@ bitwise (counter-based RNG)."""
 import jax.numpy as jnp
 import numpy as np
 
-from xraytracer_tpu.camera import PinholeCamera
-from xraytracer_tpu.integrators import make_path_integrator
-from xraytracer_tpu.parallel import (
+from xraytracer.camera import PinholeCamera
+from xraytracer.integrators import make_path_integrator
+from xraytracer.parallel import (
     make_mesh,
     shard_map_render,
     spp_parallel_render,
 )
-from xraytracer_tpu.renderer import make_sample_fn, pixel_grid, render
-from xraytracer_tpu.scene.builder import scene_statics
-from xraytracer_tpu.scene.presets import build_cornell_box, cornell_camera
+from xraytracer.renderer import make_sample_fn, pixel_grid, render
+from xraytracer.scene.builder import scene_statics
+from xraytracer.scene.presets import build_cornell_box, cornell_camera
 
 W, H = 32, 32  # 1024 pixels, divisible by 8 devices
 

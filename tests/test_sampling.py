@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xraytracer_tpu import sampling as xs
-from xraytracer_tpu.constants import PI
+from xraytracer import sampling as xs
+from xraytracer.constants import PI
 
 
 def test_path_keys_deterministic_and_distinct():
@@ -135,7 +135,7 @@ def test_discrete_distribution_1d_general():
     """General N-bin CDF container (Src/sampler.h:53-97): pmf, lower_bound
     semantics incl. the x==0 bump, and statistical agreement."""
     import numpy as np
-    from xraytracer_tpu.sampling.distribution import DiscreteDistribution1D
+    from xraytracer.sampling.distribution import DiscreteDistribution1D
 
     w = [1.0, 0.0, 3.0, 2.0, 4.0]
     d = DiscreteDistribution1D(w)

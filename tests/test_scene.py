@@ -4,16 +4,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from xraytracer_tpu.camera import PinholeCamera
-from xraytracer_tpu import film
-from xraytracer_tpu.math import from_rows
-from xraytracer_tpu.scene import (
+from xraytracer.camera import PinholeCamera
+from xraytracer import film
+from xraytracer.math import from_rows
+from xraytracer.scene import (
     SceneBuilder,
     load_obj_into,
     parse_obj,
     scene_statics,
 )
-from xraytracer_tpu.scene.presets import (
+from xraytracer.scene.presets import (
     build_cornell_box,
     preset_cornellbox,
     preset_vpt,
@@ -161,12 +161,12 @@ def test_density_grid_ingest_end_to_end(tmp_path):
     pyopenvdb (round-1 VERDICT item 6)."""
     import os
 
-    from xraytracer_tpu.camera import PinholeCamera
-    from xraytracer_tpu.cli import build_scene
-    from xraytracer_tpu.config import get_preset
-    from xraytracer_tpu.integrators import make_volume_integrator
-    from xraytracer_tpu.renderer import render
-    from xraytracer_tpu.tools.grid_convert import main as convert_main
+    from xraytracer.camera import PinholeCamera
+    from xraytracer.cli import build_scene
+    from xraytracer.config import get_preset
+    from xraytracer.integrators import make_volume_integrator
+    from xraytracer.renderer import render
+    from xraytracer.tools.grid_convert import main as convert_main
 
     fixture = os.path.join(os.path.dirname(__file__), "data", "cloud_32.npz")
     out = str(tmp_path / "cloud.npy")

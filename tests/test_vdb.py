@@ -1,4 +1,4 @@
-"""OpenVDB codec tests (xraytracer_tpu/tools/vdb.py).
+"""OpenVDB codec tests (xraytracer/tools/vdb.py).
 
 Two independent validation axes:
 
@@ -21,7 +21,7 @@ import zlib
 import numpy as np
 import pytest
 
-from xraytracer_tpu.tools import vdb as xvdb
+from xraytracer.tools import vdb as xvdb
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +300,7 @@ def test_roundtrip_blosc(tmp_path):
 # Failure modes fall back cleanly (ADVICE r2: grid_convert fallback)
 # ---------------------------------------------------------------------------
 def test_grid_convert_falls_back_on_garbage(tmp_path):
-    from xraytracer_tpu.tools.grid_convert import convert_vdb
+    from xraytracer.tools.grid_convert import convert_vdb
     p = tmp_path / "junk.vdb"
     p.write_bytes(b"\x20\x42\x44\x56\x00\x00\x00\x00" + b"\x99" * 64)
     with pytest.raises(SystemExit):
@@ -308,7 +308,7 @@ def test_grid_convert_falls_back_on_garbage(tmp_path):
 
 
 def test_grid_convert_survives_truncated_stream(tmp_path):
-    from xraytracer_tpu.tools.grid_convert import convert_vdb
+    from xraytracer.tools.grid_convert import convert_vdb
     blob, _, _ = _build_v224_fixture()
     p = tmp_path / "trunc.vdb"
     p.write_bytes(blob[: len(blob) // 2])
